@@ -27,7 +27,7 @@ OUT = os.path.join(ROOT, "tests", "goldens")
 
 # name -> (scene file | procedural "proc:<fn>", conf, size, frames, origin)
 # Reduced-size stand-ins for BASELINE.md configs 1-4 (the full-size
-# equivalents run on TPU via benchmarks/run_all.py) plus the prism
+# equivalents run on the GPU via benchmarks/run_all.py) plus the prism
 # dispersion scenario matching the reference's committed golden
 # (README.org:8; the prism scene itself is not in the reference assets,
 # so it is procedural — see utils/testscenes.prism_scene).
@@ -47,14 +47,10 @@ GOLDENS = {
 
 
 def _pin_cpu():
-    """Pin jax to the virtual CPU mesh (shared helper, repo-root
-    _cpu_pin.py). Called from main(), NOT at import time: tests import
-    GOLDENS/render from this module and must not have their process
-    silently re-platformed as a side effect (they pin the platform
-    themselves in conftest)."""
-    import _cpu_pin
-
-    _cpu_pin.force_cpu(8)
+    """Pin JAX to the CPU. Called from main(), NOT at import time: tests
+    import GOLDENS/render from this module and must not have their
+    process re-platformed as a side effect. Must run before JAX starts."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def render(name):

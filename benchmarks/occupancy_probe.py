@@ -3,7 +3,7 @@
 
 Occupancy is schedule-determined (refill policy + per-sample path
 lengths), so a CPU run with the production work-item structure
-(m_items = n*spp/P) measures the same tail-drain loss the TPU pays.
+(m_items = n*spp/P) measures the same tail-drain loss the accelerator pays.
 Iterations that run with idle lanes still pay the full query cost, so
 (1 - occupancy) bounds the end-to-end win of any tail fix.
 
@@ -20,9 +20,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import _cpu_pin
-
-_cpu_pin.force_cpu(1)
+# a CPU tool: pin the platform before JAX starts
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def main():

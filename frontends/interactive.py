@@ -22,27 +22,13 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import _cpu_pin
-
-_cpu_pin.maybe_force_from_env()  # JAX_PLATFORMS=cpu actually forces CPU
-
 import numpy as np
 
-os.environ.setdefault("TRACER_COMPILE_CACHE", "/tmp/tracer_jax_cache")
-
-
-def _enable_cache():
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["TRACER_COMPILE_CACHE"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+from tracer_tpu.utils import compile_cache
 
 
 def main():
-    _enable_cache()
+    compile_cache.enable()
     ap = argparse.ArgumentParser(description="tracer_tpu interactive viewer")
     ap.add_argument("-o", "--obj", default=os.path.join(
         os.environ.get("TRACER_ASSETS", "/root/reference/assets"),
@@ -57,7 +43,7 @@ def main():
     ap.add_argument("--headless", action="store_true",
                     help="no window (SDL dummy driver)")
     ap.add_argument("-d", "--device", default=None,
-                    help="compute device: a jax platform name ('tpu', "
+                    help="compute device: a jax platform name ('gpu', "
                     "'cpu') or 'platform:N' to pick device N — the -d "
                     "DEVICE option of the reference viewer "
                     "(liblys.c:166-209)")
@@ -66,11 +52,8 @@ def main():
     if args.device:
         plat, _, idx = args.device.partition(":")
         if plat:
-            if plat.lower() == "cpu":
-                _cpu_pin.force_cpu(1)
-            else:
-                import jax
-                jax.config.update("jax_platforms", plat.lower())
+            import jax
+            jax.config.update("jax_platforms", plat.lower())
         if idx:
             import jax
             jax.config.update("jax_default_device",

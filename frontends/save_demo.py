@@ -17,27 +17,13 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import _cpu_pin
-
-_cpu_pin.maybe_force_from_env()  # JAX_PLATFORMS=cpu actually forces CPU
-
 import numpy as np
 
-os.environ.setdefault("TRACER_COMPILE_CACHE", "/tmp/tracer_jax_cache")
-
-
-def _enable_cache():
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["TRACER_COMPILE_CACHE"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+from tracer_tpu.utils import compile_cache
 
 
 def main():
-    _enable_cache()
+    compile_cache.enable()
     ap = argparse.ArgumentParser(description="tracer_tpu LiDAR capture")
     ap.add_argument("-o", "--obj", default=os.path.join(
         os.environ.get("TRACER_ASSETS", "/root/reference/assets"),

@@ -488,8 +488,7 @@ def test_aperture_defocus_render():
 
 def test_oversize_scene_fails_loudly():
     """Above the verified dense/streaming cap, accel='auto' must raise a
-    clear error instead of silently routing onto the LBVH traversal
-    (which faults the v5e runtime inside the pooled renderer)."""
+    clear error instead of silently routing onto the LBVH traversal."""
     from tracer_tpu.models import scene as scene_mod
     tris, tm, mats = testscenes.cornell_like()
     try:
@@ -503,48 +502,29 @@ def test_oversize_scene_fails_loudly():
         scene_mod.DENSE_THRESHOLD = saved
 
 
-def test_lbvh_tpu_lane_guard(monkeypatch):
-    """An explicit accel='lbvh' query on a TPU backend at the v5e
-    faulting lane count must raise the guidance error at trace time
-    instead of an opaque device fault mid-render (the 'auto' path never
-    routes here; this pins the EXPLICIT-lbvh footgun)."""
+def test_lbvh_query_at_pool_width():
+    """An explicit accel='lbvh' scene answers closest and shadow queries
+    at a full pool width (65,536 lanes) and agrees with the dense
+    intersector there."""
     from tracer_tpu.models import scene as scene_mod
     tris, tm, mats = testscenes.cornell_like()
-    sc = scene_mod.build_scene(tris, tm, mats, accel="lbvh")
-    n = scene_mod._LBVH_TPU_LANE_FAULT
-    # rays from inside the box toward the block's front face (z=0.1)
-    o = jnp.broadcast_to(
-        jnp.asarray([0.0, 1.0, 0.9], jnp.float32)[:, None], (3, n))
-    d = jnp.broadcast_to(
-        jnp.asarray([0.0, 0.0, -1.0], jnp.float32)[:, None], (3, n))
-    monkeypatch.setattr(scene_mod.jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="faults the v5e runtime"):
-        scene_mod.closest_hit(sc, 1e30, o, d)
-    with pytest.raises(ValueError, match="faults the v5e runtime"):
-        scene_mod.any_hit(sc, 1e30, o, d)
-    monkeypatch.undo()
-    # below the fault threshold (and on CPU) lbvh queries still work
-    ok, t, idx, pos, nrm = scene_mod.closest_hit(
-        sc, 1e30, o[:, :128], d[:, :128])
-    assert bool(jnp.any(ok))
-
-
-def test_split_primary_matches_default(monkeypatch):
-    """TRACER_SPLIT_PRIMARY (two complementary tmax-masked closest calls
-    — coherent primaries vs incoherent bounce rays) must reproduce the
-    single-call render: a tmax=0 lane can never hit, so the per-class
-    merge recovers exactly the unmasked query per lane."""
-    s = cornell_state(16, 16)
-    w, h = s.sub_dims
-
-    def render():
-        out = integrator.render_pooled(
-            s.seed, s.nonce, s.scene, s.cam, s.ambience, w, h,
-            s.transmitter_kind, 4, s.render_mode)
-        return np.asarray(out["img"])
-
-    base = render()
-    monkeypatch.setenv("TRACER_SPLIT_PRIMARY", "1")
-    np.testing.assert_allclose(render(), base, rtol=1e-4, atol=1e-6)
-    monkeypatch.setenv("TRACER_SPLIT_PRIMARY", "1024,256")
-    np.testing.assert_allclose(render(), base, rtol=1e-4, atol=1e-6)
+    lb = scene_mod.build_scene(tris, tm, mats, accel="lbvh")
+    dn = scene_mod.build_scene(tris, tm, mats, accel="dense")
+    n = 65536
+    rng = np.random.default_rng(3)
+    o = jnp.asarray(rng.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9],
+                                (n, 3)).T.astype(np.float32))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = jnp.asarray((d / np.linalg.norm(d, axis=1, keepdims=True)).T)
+    ok_l, t_l, _, _, _ = scene_mod.closest_hit(lb, 1e30, o, d)
+    ok_d, t_d, _, _, _ = scene_mod.closest_hit(dn, 1e30, o, d)
+    ok_l, ok_d = np.asarray(ok_l), np.asarray(ok_d)
+    assert ok_l.mean() > 0.8        # the box is open at the front
+    assert (ok_l == ok_d).mean() > 0.9999
+    both = ok_l & ok_d
+    np.testing.assert_allclose(np.asarray(t_l)[both], np.asarray(t_d)[both],
+                               rtol=1e-4, atol=1e-5)
+    tmax = jnp.full((n,), 0.5, jnp.float32)
+    any_l = np.asarray(scene_mod.any_hit(lb, tmax, o, d))
+    any_d = np.asarray(scene_mod.any_hit(dn, tmax, o, d))
+    assert (any_l == any_d).mean() > 0.9999

@@ -3,7 +3,7 @@
 The reference's validation strategy is swapping mk_lbvh for the
 brute-force mk_fake_bvh oracle (bvh.fut:25-43, SURVEY.md section 4);
 here the swap runs at the full-render level: identical sample streams
-through the dense MXU intersector vs the LBVH must produce the same
+through the dense intersector vs the LBVH must produce the same
 image. Golden statistics pin down the Cornell render against committed
 expectations (statistical, not bitwise: the bar is
 pixel-distribution equivalence, SURVEY.md section 7)."""

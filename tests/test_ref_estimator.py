@@ -1,5 +1,5 @@
 """Parity against an INDEPENDENT transliteration of the reference
-estimator (r2 VERDICT "Next #3").
+estimator.
 
 Every other parity leg (dense == LBVH == brute-force == Pallas, the
 committed rel-RMSE goldens) shares the JAX estimator code, so a shared

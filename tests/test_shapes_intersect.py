@@ -1,5 +1,5 @@
 """Geometry kernels: elementwise Moller test, slab AABB test, and the
-MXU matmul intersector cross-checked against the broadcast oracle."""
+dense intersector cross-checked against the broadcast oracle."""
 
 import pytest
 import numpy as np
@@ -116,59 +116,3 @@ def test_degenerate_triangles_never_hit(rng_np):
     ok, _, _, _, _, _ = intersect.closest_hit(
         dense, 1e30, la.v3_from_array(o), la.v3_from_array(d))
     assert not np.any(np.asarray(ok))
-
-
-def test_packed_bf16_matches_highest(rng_np, monkeypatch):
-    """The K-packed bf16x3 score matmul (the TPU fast path, forced here
-    via TRACER_MXU_PRECISION=packed) agrees with the exact
-    Precision.HIGHEST formulation: same hit set, t to ~1e-4, indices
-    equal except at near-ties."""
-    tris = random_scene(rng_np, t=83)
-    o, d = random_rays(rng_np, n=257)
-    ov, dv = la.v3_from_array(o), la.v3_from_array(d)
-    dense = intersect.build_dense(tris)
-
-    monkeypatch.setenv("TRACER_MXU_PRECISION", "highest")
-    ok_h, t_h, i_h, _, _, _ = intersect.closest_hit(dense, 1e30, ov, dv)
-    any_h = intersect.any_hit(dense, 4.0, ov, dv)
-    monkeypatch.setenv("TRACER_MXU_PRECISION", "packed")
-    ok_p, t_p, i_p, _, _, _ = intersect.closest_hit(dense, 1e30, ov, dv)
-    any_p = intersect.any_hit(dense, 4.0, ov, dv)
-
-    # The packed path carries ~2^-15 relative error, so a ray whose
-    # only hit sits within that band of a Moller boundary can flip
-    # validity in one path only: compare by agreement rate, not exact
-    # equality (exact equality would be flaky by construction).
-    ok_p, ok_h = np.asarray(ok_p), np.asarray(ok_h)
-    assert (ok_p == ok_h).mean() > 0.99
-    hit = ok_h & ok_p
-    np.testing.assert_allclose(np.asarray(t_p)[hit], np.asarray(t_h)[hit],
-                               rtol=1e-4, atol=1e-5)
-    agree = np.asarray(i_p)[hit] == np.asarray(i_h)[hit]
-    assert agree.mean() > 0.99
-    assert (np.asarray(any_p) == np.asarray(any_h)).mean() > 0.99
-
-
-def test_packed_x6_xla_path_is_f32_exact(rng_np, monkeypatch):
-    """The XLA formulation honors the same x6 packing gate as the Pallas
-    kernel (TRACER_MXU_PACK=x6): scores become f32-exact, so closest_hit
-    agrees with the HIGHEST oracle bit-for-bit on ok/idx and to f32
-    roundoff on t — the big-scene debug path (TRACER_NO_PALLAS on TPU)
-    no longer reintroduces the bf16x3 shared-edge hit loss that
-    _mxu_splits gates x6 on."""
-    tris = random_scene(rng_np, t=83)
-    o, d = random_rays(rng_np, n=257)
-    ov, dv = la.v3_from_array(o), la.v3_from_array(d)
-    dense = intersect.build_dense(tris)
-
-    monkeypatch.setenv("TRACER_MXU_PRECISION", "highest")
-    ok_h, t_h, i_h, _, _, _ = intersect.closest_hit(dense, 1e30, ov, dv)
-    monkeypatch.setenv("TRACER_MXU_PRECISION", "packed")
-    monkeypatch.setenv("TRACER_MXU_PACK", "x6")
-    ok_p, t_p, i_p, _, _, _ = intersect.closest_hit(dense, 1e30, ov, dv)
-
-    np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(ok_h))
-    hit = np.asarray(ok_h)
-    np.testing.assert_array_equal(np.asarray(i_p)[hit], np.asarray(i_h)[hit])
-    np.testing.assert_allclose(np.asarray(t_p)[hit], np.asarray(t_h)[hit],
-                               rtol=2e-6, atol=0)

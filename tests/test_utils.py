@@ -142,7 +142,6 @@ def test_aot_standalone_process(tmp_path):
     child = f"""
 import sys
 sys.path.insert(0, {repr(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))})
-import _cpu_pin; _cpu_pin.force_cpu(1)
 import numpy as np
 from tracer_tpu.utils import aot, checkpoint
 state = checkpoint.load({ck!r})          # standalone: no template
@@ -159,7 +158,7 @@ print("MEAN", float(np.asarray(out.img).mean()))
 
 def test_bench_merge_never_clobbers_good_records():
     """run_all.merge_results: an error record must not replace a stored
-    good measurement (the flaky-tunnel replay case); fresh errors and
+    good measurement (a failed rerun); fresh errors and
     fresh measurements merge normally."""
     import sys as _sys
     _sys.path.insert(0, os.path.join(
@@ -183,33 +182,3 @@ def test_bench_merge_never_clobbers_good_records():
     out2 = run_all.merge_results(out, [{"config": "spectrum",
                                         "value": 60.0}])
     assert {r["config"]: r for r in out2}["spectrum"]["value"] == 60.0
-
-
-@pytest.mark.smoke
-def test_watchdog_fires_and_disarms():
-    """_watchdog.arm: hard-exits with the given rc when not disarmed
-    (even though the 'stuck' main thread never returns), and is a no-op
-    once .set() — the contract bench.py/__graft_entry__ rely on to
-    escape PJRT hangs."""
-    import subprocess
-    import sys as _sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    fired = subprocess.run(
-        [_sys.executable, "-c",
-         "import sys; sys.path.insert(0, %r)\n"
-         "import _watchdog, time\n"
-         "_watchdog.arm(0.2, 'boom', rc=7)\n"
-         "time.sleep(10)" % root],
-        capture_output=True, text=True, timeout=60)
-    assert fired.returncode == 7
-    assert "boom" in fired.stderr
-
-    disarmed = subprocess.run(
-        [_sys.executable, "-c",
-         "import sys; sys.path.insert(0, %r)\n"
-         "import _watchdog, time\n"
-         "done = _watchdog.arm(0.2, 'boom', rc=7)\n"
-         "done.set(); time.sleep(0.5); print('survived')" % root],
-        capture_output=True, text=True, timeout=60)
-    assert disarmed.returncode == 0 and "survived" in disarmed.stdout

@@ -1,11 +1,11 @@
-"""tracer_tpu — a TPU-native spectral path-tracing / LiDAR sensor-simulation framework.
+"""tracer_tpu — a spectral path-tracing / LiDAR sensor-simulation framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
 Futhark ray tracer (bryal/msc-futhark-ray-tracer): a spectral, physically
 based Monte Carlo path tracer with multiple importance sampling that
 simulates both a visual camera and a LiDAR sensor (reference README.org:3-6).
 
-Layer map (mirrors SURVEY.md section 1, re-architected for TPU):
+Layer map (mirrors SURVEY.md section 1, re-architected for accelerators):
 
   engine/    public API: the 7 entry points (init/step/render/key/resize/
              sample_points_n/sample_n_frames), engine state pytree,
@@ -13,10 +13,11 @@ Layer map (mirrors SURVEY.md section 1, re-architected for TPU):
   models/    sensor/camera models, lights, scene assembly, built-in
              sensor configurations (visual, visual+flash, LiDAR)
   ops/       device kernels: vec math, counter-based RNG, spectra,
-             ray/triangle/AABB intersection (dense MXU form + LBVH),
+             ray/triangle/AABB intersection (dense chunked form with a
+             fused GPU kernel + LBVH),
              Karras radix tree, uber-BSDF materials
   parallel/  multi-chip rendering: jax.sharding Mesh + shard_map tile and
-             sample sharding, psum accumulation over ICI
+             sample sharding, psum/pmean accumulation
   utils/     host-side IO: OBJ/MTL loader (Python + native C++), PCD and
              PNG writers, profiling helpers
 """

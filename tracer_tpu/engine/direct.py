@@ -5,12 +5,12 @@ scene lights + per-ray transmitter fan), then combines a light-area sample
 and a BSDF sample with the balance heuristic — UniformSampleOneLight of
 PBR Book 14.3 (direct.fut:106-122).
 
-TPU shape: the reference appends the transmitter to the light list per
-ray (integrator.fut:96, flagged by its own TODO as a strange pattern); we
-instead treat the transmitter as an explicit per-ray light-table
-extension: indices [0, L) fetch the packed static light table via a
-one-hot matmul (ops/tables.py — its (23, N) rows ARE the V3 vertex
-blocks, zero relayout), [L, L+8) select the lane's own transmitter fan
+Wavefront shape: the reference appends the transmitter to the light
+list per ray (integrator.fut:96, flagged by its own TODO as a strange
+pattern); we instead treat the transmitter as an explicit per-ray
+light-table extension: indices [0, L) fetch the packed static light
+table via ops/tables.py (rows come back transposed — its (23, N) rows
+ARE the V3 vertex blocks, zero relayout), [L, L+8) select the lane's own transmitter fan
 sector by a static where-chain. The light's emission spectrum is
 evaluated ONCE per lane at the hero wavelength; both MIS halves reuse it.
 The two shadow queries per bounce batch into two any_hit calls.

@@ -5,14 +5,13 @@ pixel (integrator.fut:27-76, :103-116) — becomes a batched wavefront: a
 flat pool of N = w*h lanes advances one bounce per iteration of a single
 lax.while_loop. Each iteration batches one closest-hit query, one NEE+MIS
 direct-lighting estimate (two any_hit shadow queries) and one BSDF sample
-across the entire pool, keeping the VPU/MXU dense; finished lanes are
+across the entire pool, keeping the device busy; finished lanes are
 masked and the loop exits early once every lane is dead
 (SURVEY.md section 7.6).
 
 Layout: rays are V3 = (3, N) transposed vectors and per-bounce records
 are (PATH_LEN, N) — lanes always live on the minor axis, so per-bounce
-writes and per-path reductions are major-axis ops (see linalg.py V3
-notes for why this matters on TPU).
+writes and per-path reductions are major-axis ops.
 
 Estimator semantics preserved exactly (SURVEY.md "estimator fidelity"):
 one hero wavelength + one channel per camera sample, emission added only
@@ -190,8 +189,8 @@ def sample_pixels(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
 #
 # The reference (and our per-frame path above) runs spp frames of a
 # <=16-bounce loop; Russian roulette kills most paths after ~2 bounces
-# (measured ~2.2 mean on Cornell), so late iterations run mostly-dead
-# lane pools: ~14% useful work. Here each lane immediately starts a
+# (~2.2 mean on Cornell, a count, not a time), so late iterations run
+# mostly-dead lane pools: ~14% useful work. Here each lane immediately starts a
 # fresh camera sample when its path dies, so the pool stays ~100%
 # occupied and total iterations drop from spp*16 to ~spp*mean_bounces
 # (+ a tail).
@@ -200,7 +199,7 @@ def sample_pixels(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
 # the pool tail-bound on scenes with heterogeneous path lengths (e.g.
 # SpectrumSphere: sky pixels terminate in 1 bounce, glass pixels run
 # ~10; sky lanes finish their quota early and idle while glass lanes
-# grind — measured 11% occupancy). Instead, lane k's s-th sample works
+# grind). Instead, lane k's s-th sample works
 # pixel (k + s*R) mod n for a fixed stride R coprime with n: each lane's
 # total load averages over ~spp quasi-random pixels and concentrates at
 # the mean, so all lanes finish together. The per-(pixel, sample) RNG
@@ -208,7 +207,7 @@ def sample_pixels(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
 # identical samples, in the same per-pixel order, as per-frame rendering.
 #
 # Accumulation under rotation cannot use a per-lane accumulator (the
-# lane's pixel changes per sample) and scatter-adds are slow on TPU; a
+# lane's pixel changes per sample), and the design avoids scatter-adds; a
 # sample that ends at round s instead writes its reduced result into row
 # s of fixed (spp, n) stores via a one-hot row mask (dense VPU op). At
 # round s the lane->pixel map is a rotation by s*R, so the final
@@ -217,34 +216,24 @@ def sample_pixels(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
 # Q-PERIODIC ROTATION. When the pool covers the whole frame (P == n —
 # the cornell/mirrorbox-class configs) the full-period rotation needs a
 # per-ITEM store: the one-hot row write touches the whole (m_items, P)
-# store every iteration (read+write ~670MB/iter at 256x262k — measured
-# 1.1ms, ~25% of the loop; a dynamic_slice window write was tried and
-# lost MORE — XLA copies the carried buffer instead of updating in
-# place). But the rotation's load-averaging saturates after a few
-# pixels per lane, so lane k's sample s works pixel
-# (k + (s mod Q) * stride) mod n with Q = ROT_Q: per-lane load still
-# averages over Q well-separated pixels (mirrorbox, all-deep specular
-# paths: direct binding Q=1 loses 17% to tail-binding; Q=8 recovers
-# it), while results fold into Q ACCUMULATING store rows — ~50MB/iter
-# of masked adds instead of 670MB of row writes, and binning is Q
-# static rolls. Q=1 degenerates to direct lane==pixel accumulation.
+# store every iteration (read+write ~670MB/iter at 256x262k, counted
+# from the shapes; a dynamic_slice window write makes XLA copy the
+# carried buffer instead of updating it in place). But the rotation's
+# load-averaging saturates after a few pixels per lane, so lane k's
+# sample s works pixel (k + (s mod Q) * stride) mod n with Q = ROT_Q:
+# per-lane load still averages over Q well-separated pixels (mirrorbox,
+# all-deep specular paths, tail-binds at Q=1), while results fold into
+# Q ACCUMULATING store rows — ~50MB/iter of masked adds instead of
+# 670MB of row writes, and binning is Q static rolls. Q=1 degenerates to direct lane==pixel accumulation.
 # The full-period rotation + per-item stores remain for P < n (the
 # heavy-scene occupancy configs, where the store is small and the
-# P-cycling needs the full item machinery anyway).
-# Measured on cornell-256spp: Q=4: 236, Q=8: 245, Q=16: 252, Q=32: 236
-# Mrays/s (load-averaging saturates, then store adds dominate).
-# Env knobs read at TRACE time anywhere under render_pooled (here and in
-# the intersection kernels). Every cached jitted executable of the
-# renderer must include knob_key() in its cache key, or a knob change
-# after the first call silently reuses the stale executable
-# (tests/test_parallel.py::test_knob_key_covers_trace_knobs).
-TRACE_KNOBS = ("TRACER_POOL_TARGET", "TRACER_ROT_Q", "TRACER_STEAL_D",
-               "TRACER_TILE_N", "TRACER_TILE_N_ANY",
-               "TRACER_APPROX_RECIP", "TRACER_MXU_PACK",
-               "TRACER_COEFF_LAYOUT", "TRACER_STREAM_COEFFS",
-               "TRACER_CHUNK_T", "TRACER_MXU_PRECISION",
-               "TRACER_NO_PALLAS", "TRACER_PERM_RAYS",
-               "TRACER_PERM_ANY", "TRACER_SPLIT_PRIMARY")
+# P-cycling needs the full item machinery anyway). ROT_Q_DEFAULT = 16
+# is not measured on the H100.
+# Env knobs read at TRACE time under render_pooled. Every cached jitted
+# executable of the renderer must include knob_key() in its cache key,
+# or a knob change after the first call silently reuses the stale
+# executable (tests/test_parallel.py::test_knob_key_covers_trace_knobs).
+TRACE_KNOBS = ("TRACER_POOL_TARGET", "TRACER_ROT_Q", "TRACER_STEAL_D")
 
 
 def knob_key() -> tuple:
@@ -256,20 +245,17 @@ ROT_Q_DEFAULT = 16
 
 
 def _rot_q() -> int:
-    """TRACER_ROT_Q, read per call like the other knobs (POOL_TARGET,
-    COEFF_LAYOUT, STREAM_COEFFS) so tests/monkeypatch can set it after
-    import."""
+    """TRACER_ROT_Q, read per call like the other knobs so
+    tests/monkeypatch can set it after import."""
     return int(os.environ.get("TRACER_ROT_Q", str(ROT_Q_DEFAULT)))
 
 
 # RING WORK-STEALING. The rotation schedule averages per-lane load, but a
 # static item->lane partition still leaves a tail: lane k's total load is
 # a sum of m_items random path costs, and the loop runs until the MAX
-# over P lanes finishes (measured occupancy on SpectrumSphere, CPU
-# schedule replay: 0.46 at m=16 .. 0.87 at m=256 — the rest of the pool
-# idles while stragglers grind). True rebalancing normally needs
-# scatters (arbitrary item -> arbitrary lane), which are slow on TPU;
-# instead lanes steal only at a small static set of ring offsets
+# over P lanes finishes (the rest of the pool idles while stragglers
+# grind). True rebalancing needs scatters (arbitrary item -> arbitrary
+# lane); instead lanes steal only at a small static set of ring offsets
 # {1, 2, 4, ... 2^(D-1)}: an idle lane with no items of its own left
 # claims the next unstarted item of the lane delta positions ahead
 # (mod P). Everything stays dense vector ops:
@@ -277,57 +263,24 @@ def _rot_q() -> int:
 #     the (P,) cursor vectors — no gather;
 #   * a stolen item's result must land in the OWNER's store column, which
 #     is again a roll of the (value, row, ended) vectors by delta before
-#     the same single masked store write — no scatter, no extra HBM
-#     traffic;
+#     the same single masked store write — no scatter, no extra device
+#     memory traffic;
 #   * per-item RNG streams depend only on (sample, pixel), so a stolen
 #     item computes the same sample into the same store slot: the P < n
 #     path draws the exact no-stealing sample set (verified slot-by-slot:
 #     chan_st — an integer pure function of (sample, pixel) — is
 #     IDENTICAL across steal settings; float values carry ~1-ulp XLA
 #     fusion noise between the two graphs, which can flip a borderline
-#     Russian-roulette draw at large sample counts — measured 3 flipped
-#     items in 262k).
+#     Russian-roulette draw at large sample counts).
 # One result per store column can merge per iteration, so when two lanes
 # finish items of the same owner simultaneously the later ring offset
 # defers (lane holds its result in `pending` and retries next iteration).
 # An owner issues at most D+1 items per iteration (self + one per
 # offset), so a straggler's backlog drains up to (D+1)x faster.
 # TRACER_STEAL_D = D (number of power-of-2 offsets; 0 disables and emits
-# the exact pre-stealing graph).
+# the exact pre-stealing graph). STEAL_D_DEFAULT is not measured on the
+# H100.
 STEAL_D_DEFAULT = 4
-
-
-def _split_primary():
-    """TRACER_SPLIT_PRIMARY: '' off; '1' = two-call coherent/incoherent
-    split at default tile size; 'TA,TB' = per-sub-batch tile sizes
-    (TA primaries, TB bounce rays; 0 = default)."""
-    v = os.environ.get("TRACER_SPLIT_PRIMARY", "")
-    if not v:
-        return None
-    if "," in v:
-        a, b = v.split(",")
-        return int(a), int(b)
-    return 0, 0
-
-
-class _tile_env:
-    """Trace-time TRACER_TILE_N override for one sub-batch query (tile
-    size is read from env during tracing; 0 leaves the default)."""
-
-    def __init__(self, tile_n: int):
-        self.tile_n = tile_n
-
-    def __enter__(self):
-        self.old = os.environ.get("TRACER_TILE_N")
-        if self.tile_n:
-            os.environ["TRACER_TILE_N"] = str(self.tile_n)
-
-    def __exit__(self, *exc):
-        if self.tile_n:
-            if self.old is None:
-                os.environ.pop("TRACER_TILE_N", None)
-            else:
-                os.environ["TRACER_TILE_N"] = self.old
 
 
 def _steal_offsets(pool: int) -> tuple[int, ...]:
@@ -349,50 +302,19 @@ def _rotation_stride(n: int) -> int:
     return r % n
 
 
-# Lane-pool sizing. Two opposing costs (measured on v5e, PERF.md):
+# Lane-pool sizing. Two opposing costs:
 #   * occupancy: a lane that drew expensive pixels runs long while others
 #     idle; with m = n*spp/P work items per lane the per-lane load
-#     concentrates at the mean, so occupancy RISES as P shrinks
-#     (SpectrumSphereHigh 1spp: occ 0.23 at m=4 -> 0.67 at m=128).
+#     concentrates at the mean, so occupancy RISES as P shrinks;
 #   * per-iteration floor: each pool iteration pays fixed cost (camera
 #     resample, masks, store writes, kernel launches); tiny pools on
-#     cheap scenes drown in it (MirrorBox 64spp: 76 -> 51 Mrays/s when
-#     halving P).
-# For scenes on the Pallas intersector (>= ~1k triangles) the iteration
-# cost is query-dominated, so aim for ITEMS_TARGET items/lane; for small
-# scenes aim for ITEMS_SMALL items/lane (bounce-tail amortization, see
-# below) but never drop below POOL_MIN_SMALL (per-iteration floor).
-# POOL_TARGET caps HBM pressure either way.
-#
-# ITEMS_SMALL: a lane's last item still runs its full path tail (up to
-# PATH_LEN bounces) at whatever pool width the loop has — with m items
-# per lane the tail is amortized over m items' useful work. The old
-# policy maxed the pool on small scenes, which at frame-sized 1-spp
-# work (the interactive viewer, 800x600) gave m_items = 2: the loop
-# spent ~30 of its 19 + tail iterations nearly empty. Measured on TPU
-# (benchmarks/profile_frame.py, 800x600 CornellBox 1 spp):
-#   pool 240000 (m=2, old default)  48.9 ms/frame   51 Mrays/s
-#   pool 120000 (m=4)               28.8            87
-#   pool  60000 (m=8)               17.4           145
-#   pool  30000 (m=16)              13.1           192   <- new policy
-#   pool  16000 (m=30)              14.0           180   (floor shows)
-# Configs whose n*spp/ITEMS_SMALL exceeds POOL_TARGET (the headline
-# 512^2 x 256spp, mirrorbox 64spp) keep pool = min(n, POOL_TARGET) and
-# the Q-periodic-rotation path exactly as before.
-#
-# BIG-SCENE POOLS GREW with the default boundary permutation (round 5):
-# sorted tiles get MORE coherent as the pool grows (more lanes per sort
-# => purer per-tile direction/origin clusters => better culling), so
-# the pre-perm ITEMS_TARGET=256 sizing left throughput on the table.
-# Measured e2e with perm active (2026-08-21):
-#   orbit (1024^2 x 1spp):  pool 8192 4.30 fps -> 32768 4.97 ->
-#                           65536 4.54 -> 131072 3.54 (tail returns)
-#   bigscene (512^2 x 16):  16384 3.63 Mrays/s -> 32768 4.38 ->
-#                           65536 4.68 -> 131072 4.60 -> 262144 4.19
-#   spectrum (512^2 x 64):  65536 64.7 (current) -> 131072 64.0
-# One rule reproduces all three optima: POOL_CAP_BIG = 65536 with
-# ITEMS_TARGET_BIG = 32 items/lane (orbit 32768, bigscene 65536,
-# spectrum 65536 — unchanged).
+#     cheap scenes drown in it.
+# Big scenes (query-dominated iterations) aim for ITEMS_TARGET_BIG
+# items/lane under POOL_CAP_BIG; small scenes aim for ITEMS_SMALL
+# items/lane (a lane's last item still runs its full path tail, which m
+# items amortize) but never drop below POOL_MIN_SMALL. POOL_TARGET caps
+# device memory either way. These constants were tuned on the earlier
+# accelerator and are not measured on the H100.
 POOL_TARGET = 262144
 POOL_CAP_BIG = 65536
 POOL_MIN = 8192
@@ -533,8 +455,8 @@ def render_pooled(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
     else:
         if color_mode:
             init["rad_st"] = jnp.zeros((m_items, pool), jnp.float32)
-            # channel ids are 0..2; int8 quarters the per-iteration HBM
-            # traffic of the store update
+            # channel ids are 0..2; int8 quarters the per-iteration
+            # device-memory traffic of the store update
             init["chan_st"] = jnp.zeros((m_items, pool), jnp.int8)
         if not color_mode or with_points:
             init["mind_st"] = jnp.full((m_items, pool), jnp.inf, jnp.float32)
@@ -761,33 +683,8 @@ def render_pooled(seed, nonce, scene: scene_mod.Scene, cam: cam_mod.Camera,
         trans_sectors = cam_mod.gen_transmitter_sectors(
             cam, transmitter_kind, c["pd"])
 
-        split = _split_primary()
-        if split is None:
-            inter = scene_mod.closest_interaction(
-                scene, shapes.F32_HIGHEST, c["o"], c["d"], c["wavelen"])
-        else:
-            # round-3 VERDICT "Next #2b" (measured round 5): run the
-            # closest query as TWO complementary tmax-masked calls —
-            # coherent refill-fresh primaries vs incoherent bounce rays
-            # — each optionally at its own tile size. A tmax=0 lane
-            # fails every slab test, so each call's scheduler sees only
-            # its sub-batch live and schedules/culls for it alone. The
-            # price is a second full-width phi pack + schedule +
-            # epilogue per iteration.
-            tile_a, tile_b = split
-            prim = c["bounce"] == 0
-            big = shapes.F32_HIGHEST
-            with _tile_env(tile_a):
-                ia = scene_mod.closest_interaction(
-                    scene, jnp.where(prim, big, 0.0), c["o"], c["d"],
-                    c["wavelen"])
-            with _tile_env(tile_b):
-                ib = scene_mod.closest_interaction(
-                    scene, jnp.where(prim, 0.0, big), c["o"], c["d"],
-                    c["wavelen"])
-            inter = jax.tree.map(
-                lambda a, b: jnp.where(
-                    prim[None] if a.ndim == 2 else prim, a, b), ia, ib)
+        inter = scene_mod.closest_interaction(
+            scene, shapes.F32_HIGHEST, c["o"], c["d"], c["wavelen"])
         hit = alive & inter.ok
         miss = alive & ~inter.ok
 

@@ -1,34 +1,44 @@
 """Engine state pytree (replaces state.fut).
 
 The reference threads one opaque functional state value through every
-entry point (state.fut:8-19); here it is a flax.struct dataclass — traced
-leaves for everything that changes per frame (so key presses don't
-recompile) and static fields for anything that changes compiled shapes or
-code structure (dimensions, subsampling, render mode, transmitter kind).
+entry point (state.fut:8-19); here it is a frozen dataclass registered
+as a pytree — traced leaves for everything that changes per frame (so
+key presses don't recompile) and static meta fields for anything that
+changes compiled shapes or code structure (dimensions, subsampling,
+render mode, transmitter kind).
 
 Being a pytree, the whole engine state checkpoints for free
-(np.savez / orbax), covering the reference's implicit
+(utils/checkpoint.py), covering the reference's implicit
 "state is the checkpoint" design (SURVEY.md section 5).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from functools import partial
+
 import jax
-from flax import struct
 
 from tracer_tpu.models import camera as cam_mod
 from tracer_tpu.models import scene as scene_mod
 
+_STATIC = ("width", "height", "subsampling", "render_mode",
+           "transmitter_kind", "cam_conf_id")
 
-@struct.dataclass
+
+@partial(jax.tree_util.register_dataclass,
+         data_fields=["seed", "nonce", "img", "n_frames", "ambience", "mode",
+                      "cam", "scene"],
+         meta_fields=list(_STATIC))
+@dataclasses.dataclass(frozen=True)
 class EngineState:
     # --- static (recompile when changed)
-    width: int = struct.field(pytree_node=False)
-    height: int = struct.field(pytree_node=False)
-    subsampling: int = struct.field(pytree_node=False)
-    render_mode: str = struct.field(pytree_node=False)       # "color"|"distance"
-    transmitter_kind: str = struct.field(pytree_node=False)  # camera.TRANSMITTER_*
-    cam_conf_id: int = struct.field(pytree_node=False)
+    width: int
+    height: int
+    subsampling: int
+    render_mode: str       # "color" | "distance"
+    transmitter_kind: str  # camera.TRANSMITTER_*
+    cam_conf_id: int
 
     # --- traced
     seed: jax.Array       # u32 scalar
@@ -39,6 +49,10 @@ class EngineState:
     mode: jax.Array       # bool scalar: progressive accumulation on
     cam: cam_mod.Camera
     scene: scene_mod.Scene
+
+    def replace(self, **changes) -> "EngineState":
+        """A copy with the given fields changed."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def sub_dims(self) -> tuple[int, int]:

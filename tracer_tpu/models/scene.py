@@ -3,9 +3,10 @@ structure (replaces scene.fut).
 
 Acceleration is pluggable behind a common query interface, mirroring the
 reference's module-type-abstracted bvh (bvh.fut:11-23):
-  * "dense"  — the MXU matmul intersector (exhaustive; fastest for the
-               small scenes this framework targets AND the correctness
-               oracle, like mk_fake_bvh bvh.fut:25-43)
+  * "dense"  — the exhaustive chunked intersector (ops/intersect.py: a
+               fused culling kernel on GPU, the XLA formulation
+               elsewhere; also the correctness oracle, like mk_fake_bvh
+               bvh.fut:25-43)
   * "lbvh"   — morton/Karras LBVH with stackless traversal (bvh.fut:75-168)
 Light extraction happens host-side at scene build: light count must be
 static under jit anyway (SURVEY.md section 7 "dynamic shapes").
@@ -26,24 +27,12 @@ from tracer_tpu.ops import linalg as la
 
 Accel = Union[intersect.DenseTris, bvh_mod.LBVH]
 
-# Triangle count at/below which the exhaustive MXU intersector is used.
-# The dense/Pallas path beats gather-bound LBVH traversal on TPU by >100x
-# for every stock scene (traversal while_loops are memory-latency bound and
-# the nested-loop form faults the v5e runtime inside the pooled renderer),
-# so dense is the production default; LBVH remains for parity, tests, and
-# host-side experimentation. Past ~125k triangles the packed
-# coefficients leave VMEM for HBM and stream through a double-buffered
-# DMA scratch (pallas/intersect_kernel._use_streaming), so the cap is
-# set by the per-chunk SMEM bounds table and by throughput (a flat
-# chunk stream is O(reachable chunks) per ray), not by memory;
-# superchunk-granular scheduling (MAX_SCHED) keeps schedule tables
-# bounded at any size. benchmarks/bigscene_check.py validates the
-# streaming path hit-for-hit vs the exact XLA oracle at 2.23M
-# triangles (the run that motivated x6 score packing:
-# pallas/intersect_kernel._mxu_splits); "auto" above the cap raises
-# instead of silently routing onto the LBVH traversal, whose
-# while-loop form faults the v5e runtime at >=65k lanes inside the
-# pooled renderer.
+# Triangle count at/below which "auto" picks the dense intersector. Dense
+# is the production default; LBVH remains for parity, tests and host-side
+# experimentation. Above the cap "auto" raises instead of silently
+# routing onto the LBVH traversal: no size past it is verified. The cap
+# predates the GPU kernel; which accelerator pays past ~1M triangles on
+# the H100 is not measured (ROADMAP B5).
 DENSE_THRESHOLD = 2_500_000
 
 
@@ -98,12 +87,9 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np,
     if accel == "auto":
         if t > DENSE_THRESHOLD:
             raise ValueError(
-                f"scene has {t} triangles, above the verified dense/"
-                f"streaming cap ({DENSE_THRESHOLD}); pass accel='lbvh' "
-                f"explicitly (host/CPU experimentation only — the LBVH "
-                f"traversal is not supported inside the pooled TPU "
-                f"renderer) or accel='dense' to try the streaming "
-                f"intersector past its verified size")
+                f"scene has {t} triangles, above the verified dense "
+                f"cap ({DENSE_THRESHOLD}); pass accel='lbvh' or "
+                f"accel='dense' explicitly to run past it")
         accel = "dense"
     tris = jnp.asarray(tris_np)
     # tri_mat is indexed by the accel's returned triangle index, so it
@@ -169,34 +155,6 @@ def pack_light_table(lights: lights_mod.Lights) -> jax.Array:
     ], axis=1)
 
 
-# Lane count at which the LBVH while-loop traversal faults the v5e
-# runtime inside the pooled renderer (observed; see DENSE_THRESHOLD
-# note above). Guarded at trace time: "auto" never routes here, but an
-# EXPLICIT accel="lbvh" scene would otherwise hit an opaque device
-# fault mid-render.
-_LBVH_TPU_LANE_FAULT = 65536
-
-
-def _guard_lbvh_lanes(n: int) -> None:
-    """Raise a clear, actionable error instead of the opaque v5e
-    runtime fault when LBVH traversal would run on a TPU backend at a
-    faulting lane count. Lane count is static at trace time, so a
-    Python raise works under jit."""
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu and n >= _LBVH_TPU_LANE_FAULT:
-        raise ValueError(
-            f"LBVH traversal with {n} lanes on TPU: the while-loop "
-            f"traversal faults the v5e runtime at >= "
-            f"{_LBVH_TPU_LANE_FAULT} lanes. Rebuild the scene with "
-            "accel='dense' (the production TPU path; streams past VMEM "
-            "at any verified size) or split the query into smaller "
-            "lane batches. accel='lbvh' remains supported on CPU and "
-            "for small TPU queries.")
-
-
 def closest_hit(scene: Scene, tmax, origin, d):
     """Dispatch to the active acceleration structure. Rays are V3 (3,N);
     returns (ok, t, tri_idx, pos (3,N), normal (3,N)).
@@ -209,7 +167,6 @@ def closest_hit(scene: Scene, tmax, origin, d):
     if isinstance(scene.accel, intersect.DenseTris):
         return intersect.closest_hit(scene.accel, tmax, origin, d)[:5]
     n = jnp.broadcast_shapes(origin.shape, d.shape)[1]
-    _guard_lbvh_lanes(n)
     o_a = la.v3_to_array(jnp.broadcast_to(origin, (3, n)))
     d_a = la.v3_to_array(jnp.broadcast_to(d, (3, n)))
     ok, t, idx, pos, nrm = bvh_mod.closest_hit(scene.accel, tmax, o_a, d_a)
@@ -221,7 +178,6 @@ def any_hit(scene: Scene, tmax, origin, d):
     if isinstance(scene.accel, intersect.DenseTris):
         return intersect.any_hit(scene.accel, tmax, origin, d)
     n = jnp.broadcast_shapes(origin.shape, d.shape)[1]
-    _guard_lbvh_lanes(n)
     o_a = la.v3_to_array(jnp.broadcast_to(origin, (3, n)))
     d_a = la.v3_to_array(jnp.broadcast_to(d, (3, n)))
     return bvh_mod.any_hit(scene.accel, tmax, o_a, d_a)
@@ -240,13 +196,9 @@ class Interaction(NamedTuple):
 def closest_interaction(scene: Scene, tmax, origin, d, wavelen) -> Interaction:
     """closest_hit + material row fetch evaluated at the hero wavelength
     (closest_interaction, scene.fut:68-73). The fetch is two-level: a
-    1-int-per-lane triangle->material-id lookup, then a one-hot matmul
-    over the SMALL (M, 28) material table (ops/tables.py). The old
-    single-level fetch from a per-triangle (T, 28) row table turned into
-    an XLA device gather past 512 triangles whose (N, 28) result needed
-    a layout copy + strided slices — ~1.1 ms/iter at 65k lanes on
-    SpectrumSphere; the id indirection keeps the wide fetch on the MXU
-    at any triangle count."""
+    1-int-per-lane triangle->material-id lookup (for the dense
+    intersector it rides the aux column), then a row fetch from the
+    SMALL (M, 28) material table (ops/tables.py)."""
     if isinstance(scene.accel, intersect.DenseTris):
         # material id rides the dense intersector's aux column — no
         # extra per-lane fetch

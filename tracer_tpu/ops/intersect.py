@@ -1,14 +1,14 @@
-"""Dense ray-triangle intersection as MXU matmuls.
+"""Dense ray-triangle intersection.
 
-TPU-native re-design of the brute-force oracle `mk_fake_bvh`
-(reference src/bvh.fut:25-43) that is ALSO a production fast path for
-small-to-medium scenes: every determinant of the Moller triangle test
-(reference src/shapes.fut:66-86) is linear in the ray features
+Re-design of the brute-force oracle `mk_fake_bvh` (reference
+src/bvh.fut:25-43) that is also the production path: every determinant
+of the Moller triangle test (reference src/shapes.fut:66-86) is linear
+in the ray features
 
     phi(ray) = [ d, o, o x d, 1 ]            in R^10
 
-so testing N rays against T triangles is one (4T,10) @ (10,N) matmul on
-the MXU plus elementwise VPU postprocessing:
+so testing N rays against T triangles is a (4T,10) @ (10,N) product plus
+an elementwise epilogue:
 
     a   = -(n . d)                 n  = e1 x e2
     n.s =  n . o - n . A           s  = o - A
@@ -16,34 +16,30 @@ the MXU plus elementwise VPU postprocessing:
     m.e1 = (o x d) . e1 + (A x e1) . d
     t = (n.s)/a,  u = (m.e2)/a,  v = -(m.e1)/a
 
-Layout is TRANSPOSED relative to the obvious formulation: scores live in
-(T, N) with rays on the minor (lane) axis, so the per-triangle component
-blocks are free major-axis slices and the min/argmin reduction runs over
-the major axis — reductions over the lane axis cost ~5ms per call on a
-v5e, reductions over the major axis are nearly free. Triangles are
-processed in padded chunks under `lax.scan` with a running
-(best_t, best_index) so the (T, N) score matrix never spills to HBM for
-large T.
+Two implementations answer the queries:
+  * on a GPU, a fused Pallas kernel (pallas/intersect_triton.py) that
+    keeps scores in registers and culls triangle chunks by their AABBs;
+  * elsewhere, the XLA formulation below: scores live in (T, N) with
+    rays on the minor axis, triangles processed in chunks under
+    `lax.scan` with a running (best_t, best_index). It is the CPU path
+    and the oracle the kernel is tested against; `reference(dense)`
+    selects it on every backend.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 
 from tracer_tpu.ops import shapes, tables
 
-# Triangle-chunk padding granularity. Small scenes pad to 128 (the XLA
-# path computes every padded row, so tighter is cheaper); scenes big
-# enough for the Pallas kernel pad to its CHUNK_T=256 so the build-time
-# chunk AABBs line up 1:1 with the kernel's chunk loop.
-_PAD = 128
-_PAD_LARGE = 256
-_PAD_LARGE_MIN_TRIS = 512
+# Triangles per chunk: the padding granularity of the table, the unit
+# of the per-chunk AABBs and of the kernel's cull (set by measurement on
+# the H100; PERF.md "intersection kernel").
+CHUNK = 16
+# Rows per scored chunk of the XLA formulation's scan.
 DEFAULT_CHUNK = 512
 
 
@@ -56,10 +52,8 @@ class DenseTris(NamedTuple):
             aux scalar (column 9, e.g. the material id; 0 when unused).
             Zero vertices => degenerate, always rejected by the
             |a| >= eps test. The aux column rides the one wide row
-            fetch _reintersect already does: a separate 1-int-per-lane
-            aux gather measured 0.47 ms/iter at 65k lanes (TPU scalar
-            gathers run ~0.5 GB/s) while widening this fetch 9 -> 10
-            columns is free.
+            fetch _reintersect already does instead of a second
+            per-lane gather.
     perm:   (T_pad,) int32 — triangles are stored in morton order so
             consecutive CHUNK-sized groups are spatially tight; perm[i]
             is the input index of stored triangle i (identity beyond T)
@@ -77,9 +71,9 @@ def build_dense(tris, pad_to: int | None = None, aux=None) -> DenseTris:
     """Precompute matmul coefficients from (T, 3, 3) triangles.
 
     Triangles are morton-sorted first (like the LBVH leaf order,
-    bvh.fut:93-97) so the fixed-size chunks the Pallas kernel streams
-    act as an implicit two-level hierarchy: each chunk's AABB is tight
-    and the kernel can skip whole chunk-vs-ray-tile matmuls.
+    bvh.fut:93-97) so the fixed-size chunks the GPU kernel walks act as
+    an implicit two-level hierarchy: each chunk's AABB is tight and the
+    kernel skips whole chunks that no ray of a block can reach.
 
     aux: optional (T,) per-triangle scalar carried alongside the
     vertices (stored in tris column 9, returned per winning lane by
@@ -91,11 +85,7 @@ def build_dense(tris, pad_to: int | None = None, aux=None) -> DenseTris:
     aux = (jnp.zeros((t,), jnp.float32) if aux is None
            else jnp.asarray(aux, jnp.float32).reshape(t))
     if pad_to is None:
-        env = os.environ.get("TRACER_CHUNK_T")
-        if env:
-            pad_to = int(env)
-        else:
-            pad_to = _PAD_LARGE if t > _PAD_LARGE_MIN_TRIS else _PAD
+        pad_to = CHUNK
     t_pad = max(pad_to, -(-max(t, 1) // pad_to) * pad_to)
 
     if t > 1:
@@ -163,57 +153,16 @@ def ray_features_t(origin, d):
     return jnp.concatenate([d, origin, oxd, ones], axis=0)
 
 
-def _use_packed_bf16() -> bool:
-    """K-packed bf16x3 scores on real TPUs (one MXU pass instead of the
-    six of Precision.HIGHEST, ~2^-15 relative error — same arithmetic as
-    the Pallas kernel); exact f32 elsewhere (CPU tests/oracle).
-    TRACER_MXU_PRECISION=highest forces the exact path everywhere;
-    =packed forces the bf16x3 path (precision tests on CPU)."""
-    mode = os.environ.get("TRACER_MXU_PRECISION", "").lower()
-    if mode == "highest":
-        return False
-    if mode == "packed":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _score_matmul(rows, phi_t, t_pad: int):
-    """rows (R, 10) f32 @ phi_t (10, N) f32 -> (R, N) f32.
-
-    On TPU: K-packed multi-word bf16, same word count as the Pallas
-    kernel picks for this scene size (pallas/intersect_kernel._mxu_splits
-    — bf16x3/K=30 for stock scenes, x6/K=60 f32-exact above 32k padded
-    tris, where bf16x3's cancellation loses shared-edge hits; TRACER_MXU_PACK
-    forces either). Elsewhere: one exact HIGHEST-precision product.
-    t_pad is the PADDED TRIANGLE COUNT of the whole scene (the precision
-    gate's key), not this chunk's row count.
-    """
-    if _use_packed_bf16():
-        from tracer_tpu.ops.pallas.intersect_kernel import (
-            _PACK_LEFT, _PACK_RIGHT, _mxu_splits, _split_words)
-        splits = _mxu_splits(t_pad)
-        rw = _split_words(rows, splits)
-        pw = _split_words(phi_t, splits)
-        return jax.lax.dot_general(
-            jnp.concatenate([rw[i] for i in _PACK_LEFT[splits]], axis=-1),
-            jnp.concatenate([pw[i] for i in _PACK_RIGHT[splits]], axis=0),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-    return jax.lax.dot_general(
-        rows, phi_t, (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)
-
-
-def _chunk_scores_t(phi_t, coeffs_chunk, tmax, t_pad: int):
+def _chunk_scores_t(phi_t, coeffs_chunk, tmax):
     """Rays vs one chunk: coeffs_chunk (4, C, 10), phi_t (10, N).
 
     Returns (valid (C, N) bool, t (C, N) f32, +inf on invalid lanes).
+    The product runs at Precision.HIGHEST: f32 without TF32 rounding.
     """
     c = coeffs_chunk.shape[1]
-    p = _score_matmul(coeffs_chunk.reshape(4 * c, 10), phi_t, t_pad)  # (4C, N)
+    p = jax.lax.dot_general(
+        coeffs_chunk.reshape(4 * c, 10), phi_t, (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST)  # (4C, N)
     a, nt, nu, nv = p[:c], p[c:2 * c], p[2 * c:3 * c], p[3 * c:]
     nondeg = jnp.abs(a) >= shapes.TRI_EPS
     inv_a = jnp.where(nondeg, 1.0, 0.0) / jnp.where(nondeg, a, 1.0)
@@ -237,173 +186,73 @@ def _reintersect(dense: DenseTris, best_i, origin, d, tmax):
     return ok, t, pos, nrm, rows_t[9]
 
 
-def _use_pallas(t_pad: int) -> bool:
-    """The Pallas kernel handles every query on real TPUs; the XLA
-    formulation is the CPU path and the independent test oracle
-    (TRACER_NO_PALLAS forces it on TPU too).
-
-    There used to be a >=1024-triangle gate here: an early kernel
-    revision lost to the XLA formulation on small scenes (XLA fused the
-    one-chunk score matrix into the surrounding pipeline). The current
-    kernel — in-kernel scheduled chunk loop, K-packed bf16x3, VMEM-only
-    score matrices — beats the XLA path ~7x even at 128 padded
-    triangles (Cornell 262k lanes: closest 6.2ms -> 0.89ms; the XLA
-    path round-trips ~2GB of score/epilogue intermediates through HBM
-    per query), so the gate is gone."""
-    del t_pad
-    if os.environ.get("TRACER_NO_PALLAS"):
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+class XlaDenseTris(DenseTris):
+    """DenseTris whose queries always take the XLA formulation — the
+    reference the GPU kernel is compared with on the card. A distinct
+    pytree type, so a jitted renderer traces each choice separately."""
+    __slots__ = ()
 
 
-# ---------------------------------------------------------------------------
-# Boundary-only ray permutation (round-3 VERDICT "Next #2a", measured
-# round 5). The pooled loop's bounce rays are direction-incoherent, so
-# every 2048-lane tile reaches every chunk and the per-tile near-to-far
-# schedule + slab culls stop culling (docs/PERF.md "walk" result). At
-# the CLOSEST query boundary only, lanes can be reordered by a
-# direction/origin coherence key so tiles become coherent: the sort is
-# a multi-operand lax.sort that co-moves the 10 phi rows (no gathers),
-# the kernel runs on the sorted order, and only (best_t, best_i) sort
-# back by the saved iota. Lane state NEVER moves — this is not the
-# full-state binning-by-sort that measured a 5x loss. Keys mirror
-# benchmarks/schedule_stats.py `perm` (the CPU predictor):
-#   oct       3-bit direction octant
-#   dmorton   30-bit morton of the quantized direction
-#   odmorton  15-bit origin morton (scene-bounds quantized) over
-#             15-bit direction morton
-# Results are exact regardless of order: a chunk holding a lane's true
-# closest hit always passes that lane's slab test, and the winner is
-# re-verified per lane by _reintersect (cross-chunk EXACT-t ties may
-# resolve differently; the estimator never depends on tie identity).
-
-# Auto-enable thresholds (chunk count of the scene's accel, static at
-# trace time). Measured on the chip (2026-08-21, docs/PERF.md):
-#   closest  9 chunks (config 4): 54.61 vs 54.75 baseline — a wash;
-#            35 chunks (config 5): +12.6% fps; 544 chunks (config 6,
-#            with anyhit): 2.04x. Threshold between 9 and 35.
-#   anyhit   +18% already at 9 chunks (the ~90% NEE-masked shadow
-#            lanes group into dead tiles that schedule nothing);
-#            1 chunk has nothing to cull — pure sort cost.
-PERM_AUTO_MIN_CHUNKS = 16
-PERM_ANY_AUTO_MIN_CHUNKS = 2
+def reference(dense: DenseTris) -> XlaDenseTris:
+    """The same triangles, queried by the XLA formulation everywhere."""
+    return XlaDenseTris(*dense)
 
 
-def _perm_mode(n_chunks: int) -> str:
-    """Resolved CLOSEST-query permutation key. TRACER_PERM_RAYS:
-    unset -> auto (odmorton when the scene has >= PERM_AUTO_MIN_CHUNKS
-    chunks, else off); '0'/'off' -> off; key name -> forced. Read per
-    call like the other trace knobs (in integrator.TRACE_KNOBS)."""
-    v = os.environ.get("TRACER_PERM_RAYS", "")
-    if v in ("0", "off"):
-        return ""
-    if v:
-        return v
-    return "odmorton" if n_chunks >= PERM_AUTO_MIN_CHUNKS else ""
+def use_kernel(dense: DenseTris) -> bool:
+    """The fused kernel answers every query on a GPU; the XLA
+    formulation answers on other backends and for `reference` tables."""
+    return (not isinstance(dense, XlaDenseTris)
+            and jax.default_backend() == "gpu")
 
 
-def _spread3(v, bits: int):
-    r = jnp.zeros_like(v)
-    for i in range(bits):
-        r = r | (((v >> i) & 1) << (3 * i))
-    return r
+def _chunked(coeffs, chunk: int):
+    """(4, T_pad, 10) -> (n_chunks, 4, chunk, 10), zero-padded (zero
+    rows are degenerate and never hit)."""
+    t_pad = coeffs.shape[1]
+    n_chunks = -(-t_pad // chunk)
+    coeffs = jnp.pad(coeffs, ((0, 0), (0, n_chunks * chunk - t_pad), (0, 0)))
+    return coeffs.reshape(4, n_chunks, chunk, 10).transpose(1, 0, 2, 3)
 
 
-def _quant_i(v, lo, hi, bits: int):
-    scale = jnp.float32((1 << bits)) / jnp.maximum(hi - lo, 1e-30)
-    q = ((v - lo) * scale).astype(jnp.int32)
-    return jnp.clip(q, 0, (1 << bits) - 1)
+def _closest_xla(dense: DenseTris, phi_t, tmax, chunk: int):
+    """(best_t, best_i) by the XLA formulation: global min-t, lowest
+    storage index on exact ties."""
+    if dense.coeffs.shape[1] <= chunk:
+        _, t = _chunk_scores_t(phi_t, dense.coeffs, tmax)
+        return jnp.min(t, axis=0), jnp.argmin(t, axis=0).astype(jnp.int32)
 
+    def body(carry, inp):
+        best_t, best_i = carry
+        c_idx, coeffs_chunk = inp
+        _, t = _chunk_scores_t(phi_t, coeffs_chunk, tmax)
+        loc_i = jnp.argmin(t, axis=0).astype(jnp.int32)
+        loc_t = jnp.min(t, axis=0)
+        better = loc_t < best_t
+        best_t = jnp.where(better, loc_t, best_t)
+        best_i = jnp.where(better, c_idx * chunk + loc_i, best_i)
+        return (best_t, best_i), None
 
-def _perm_key(phi_t, chunk_bounds, mode):
-    """Coherence sort key from the ray features (phi = [d, o, oxd, 1])."""
-    d0, o0 = phi_t[0:3], phi_t[3:6]
-    if mode == "oct":
-        return ((d0[0] >= 0).astype(jnp.int32) * 4
-                + (d0[1] >= 0).astype(jnp.int32) * 2
-                + (d0[2] >= 0).astype(jnp.int32))
-    if mode == "dmorton":
-        b = 10
-        return ((_spread3(_quant_i(d0[0], -1.0, 1.0, b), b) << 2)
-                | (_spread3(_quant_i(d0[1], -1.0, 1.0, b), b) << 1)
-                | _spread3(_quant_i(d0[2], -1.0, 1.0, b), b))
-    # odmorton: origin-major (scene-bounds normalized), direction minor
-    finite = chunk_bounds[:, 0] <= chunk_bounds[:, 3]
-    lo = jnp.min(jnp.where(finite[:, None], chunk_bounds[:, 0:3],
-                           jnp.inf), axis=0)
-    hi = jnp.max(jnp.where(finite[:, None], chunk_bounds[:, 3:6],
-                           -jnp.inf), axis=0)
-    b = 5
-    om = ((_spread3(_quant_i(o0[0], lo[0], hi[0], b), b) << 2)
-          | (_spread3(_quant_i(o0[1], lo[1], hi[1], b), b) << 1)
-          | _spread3(_quant_i(o0[2], lo[2], hi[2], b), b))
-    dm = ((_spread3(_quant_i(d0[0], -1.0, 1.0, b), b) << 2)
-          | (_spread3(_quant_i(d0[1], -1.0, 1.0, b), b) << 1)
-          | _spread3(_quant_i(d0[2], -1.0, 1.0, b), b))
-    return (om << 15) | dm
-
-
-def _permuted_closest(dense: DenseTris, tmax, phi_t, pk, mode=None):
-    """Run the Pallas closest kernel on coherence-sorted lanes; returns
-    (best_t, best_i) in the ORIGINAL lane order."""
+    coeffs = _chunked(dense.coeffs, chunk)
     n = phi_t.shape[1]
-    if mode is None:
-        mode = _perm_mode(int(dense.chunk_bounds.shape[0]))
-    key = _perm_key(phi_t, dense.chunk_bounds, mode)
-    iota = jnp.arange(n, dtype=jnp.int32)
-    tmax = jnp.asarray(tmax, jnp.float32)
-    ops = (key, iota) + tuple(phi_t[i] for i in range(phi_t.shape[0]))
-    t_sorted = tmax
-    if tmax.ndim:  # per-lane tmax must ride the sort too
-        ops = ops + (tmax,)
-    s = jax.lax.sort(ops, num_keys=1)
-    iota_s = s[1]
-    phi_s = jnp.stack(s[2:2 + phi_t.shape[0]], axis=0)
-    if tmax.ndim:
-        t_sorted = s[2 + phi_t.shape[0]]
-    bt, bi = pk.closest_hit_pallas(dense.coeffs, phi_s, t_sorted,
-                                   dense.chunk_bounds)
-    back = jax.lax.sort((iota_s, bt, bi), num_keys=1)
-    return back[1], back[2]
+    init = (jnp.full((n,), jnp.inf, jnp.float32), jnp.zeros((n,), jnp.int32))
+    (best_t, best_i), _ = jax.lax.scan(
+        body, init,
+        (jnp.arange(coeffs.shape[0], dtype=jnp.int32), coeffs))
+    return best_t, best_i
 
 
-def _perm_any_mode(n_chunks: int) -> str:
-    """Resolved ANYHIT-query permutation key — like _perm_mode but for
-    the shadow query, whose sort key additionally groups DEAD lanes
-    (tmax <= 0: NEE-masked or zero-length shadow rays — ~90% of shadow
-    lanes on spectral scenes) in front, so whole tiles of masked lanes
-    schedule nothing. TRACER_PERM_ANY: unset -> auto (odmorton at
-    >= PERM_ANY_AUTO_MIN_CHUNKS chunks); '0'/'off' -> off; key name ->
-    forced."""
-    v = os.environ.get("TRACER_PERM_ANY", "")
-    if v in ("0", "off"):
-        return ""
-    if v:
-        return v
-    return "odmorton" if n_chunks >= PERM_ANY_AUTO_MIN_CHUNKS else ""
+def _any_xla(dense: DenseTris, phi_t, tmax, chunk: int):
+    if dense.coeffs.shape[1] <= chunk:
+        valid, _ = _chunk_scores_t(phi_t, dense.coeffs, tmax)
+        return jnp.any(valid, axis=0)
 
+    def body(hit, coeffs_chunk):
+        valid, _ = _chunk_scores_t(phi_t, coeffs_chunk, tmax)
+        return hit | jnp.any(valid, axis=0), None
 
-def _permuted_any(dense: DenseTris, tmax, phi_t, pk, mode=None):
-    """Run the Pallas anyhit kernel on coherence-sorted lanes (dead
-    lanes first); returns hit (N,) bool in the ORIGINAL lane order."""
-    n = phi_t.shape[1]
-    if mode is None:
-        mode = _perm_any_mode(int(dense.chunk_bounds.shape[0]))
-    tmax = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (n,))
-    key = _perm_key(phi_t, dense.chunk_bounds, mode)
-    key = jnp.where(tmax > 0.0, key, -1)
-    iota = jnp.arange(n, dtype=jnp.int32)
-    ops = (key, iota, tmax) + tuple(phi_t[i] for i in range(phi_t.shape[0]))
-    s = jax.lax.sort(ops, num_keys=1)
-    iota_s, tmax_s = s[1], s[2]
-    phi_s = jnp.stack(s[3:3 + phi_t.shape[0]], axis=0)
-    hit = pk.any_hit_pallas(dense.coeffs, phi_s, tmax_s,
-                            dense.chunk_bounds)
-    back = jax.lax.sort((iota_s, hit.astype(jnp.int32)), num_keys=1)
-    return back[1].astype(bool)
+    hit, _ = jax.lax.scan(body, jnp.zeros((phi_t.shape[1],), bool),
+                          _chunked(dense.coeffs, chunk))
+    return hit
 
 
 def closest_hit(dense: DenseTris, tmax, origin, d,
@@ -413,74 +262,22 @@ def closest_hit(dense: DenseTris, tmax, origin, d,
     Returns (ok (N,), t (N,), tri_idx (N,) int32, pos (3,N), normal (3,N),
     aux (N,) f32 — the winner's build-time aux scalar, 0 on miss).
     Semantics match mk_fake_bvh.closest_hit (bvh.fut:31-39): global min-t.
+    `chunk` is the XLA formulation's scan chunk; the kernel ignores it.
     """
     phi_t = ray_features_t(origin, d)
-    if _use_pallas(dense.coeffs.shape[1]):
-        from tracer_tpu.ops.pallas import intersect_kernel as pk
-        mode = _perm_mode(int(dense.chunk_bounds.shape[0]))
-        if mode:
-            best_t, best_i = _permuted_closest(dense, tmax, phi_t, pk,
-                                               mode=mode)
-        else:
-            best_t, best_i = pk.closest_hit_pallas(
-                dense.coeffs, phi_t, jnp.asarray(tmax, jnp.float32),
-                dense.chunk_bounds)
-        ok = jnp.isfinite(best_t)
-        best_i = jnp.where(ok, best_i, 0)
-        # tmax slack so a true winner isn't rejected by the exact
-        # re-test: the kernel's t carries bf16x3 packing error (~2^-15
-        # relative) plus, when TRACER_APPROX_RECIP is on, the
-        # approximate-reciprocal error (<= APPROX_RECIP_REL = 2^-8
-        # measured; see intersect_kernel). Production closest queries
-        # all pass tmax = F32_HIGHEST (the LiDAR distance window is
-        # applied downstream), so the slack never admits extra hits on
-        # the hot path — it only matters for explicit finite-tmax API
-        # calls, where 2x the error bound keeps near-tmax winners.
-        slack = 2.0 * pk.APPROX_RECIP_REL if pk._approx_recip() else 1e-4
-        ok2, t, pos, normal, aux = _reintersect(
-            dense, best_i, origin, d,
-            jnp.asarray(tmax, jnp.float32) * (1.0 + slack))
-        ok = ok & ok2
-        return (ok, jnp.where(ok, t, jnp.inf),
-                jnp.where(ok, best_i, -1), pos, normal,
-                jnp.where(ok, aux, 0.0))
-    t_pad = dense.coeffs.shape[1]
-    n_chunks = -(-t_pad // chunk)
     tmax = jnp.asarray(tmax, jnp.float32)
-
-    if n_chunks == 1:
-        valid, t = _chunk_scores_t(phi_t, dense.coeffs, tmax, t_pad)
-        best_i = jnp.argmin(t, axis=0).astype(jnp.int32)
-        best_t = jnp.min(t, axis=0)
+    if use_kernel(dense):
+        from tracer_tpu.ops.pallas import intersect_triton
+        best_t, best_i = intersect_triton.closest_hit(
+            dense.coeffs, dense.chunk_bounds, phi_t, tmax)
     else:
-        pad = n_chunks * chunk - t_pad
-        coeffs = jnp.pad(dense.coeffs, ((0, 0), (0, pad), (0, 0)))
-        coeffs = coeffs.reshape(4, n_chunks, chunk, 10).transpose(1, 0, 2, 3)
-
-        def body(carry, inp):
-            best_t, best_i = carry
-            c_idx, coeffs_chunk = inp
-            _, t = _chunk_scores_t(phi_t, coeffs_chunk, tmax, t_pad)
-            loc_i = jnp.argmin(t, axis=0).astype(jnp.int32)
-            loc_t = jnp.min(t, axis=0)
-            better = loc_t < best_t
-            best_t = jnp.where(better, loc_t, best_t)
-            best_i = jnp.where(better, c_idx * chunk + loc_i, best_i)
-            return (best_t, best_i), None
-
-        n = phi_t.shape[1]
-        init = (jnp.full((n,), jnp.inf, jnp.float32),
-                jnp.zeros((n,), jnp.int32))
-        (best_t, best_i), _ = jax.lax.scan(
-            body, init, (jnp.arange(n_chunks, dtype=jnp.int32), coeffs))
-
+        best_t, best_i = _closest_xla(dense, phi_t, tmax, chunk)
     ok = jnp.isfinite(best_t)
     best_i = jnp.where(ok, best_i, 0)
-    # slack covers the bf16x3 t error (~2^-15) when the score matmul is
-    # packed; the exact HIGHEST formulation only needs rounding headroom
-    slack = 1e-4 if _use_packed_bf16() else 1e-6
+    # rounding headroom so the exact re-test keeps a true winner that
+    # sits at tmax
     ok2, t, pos, normal, aux = _reintersect(dense, best_i, origin, d,
-                                            tmax * (1.0 + slack))
+                                            tmax * (1.0 + 1e-6))
     ok = ok & ok2
     return (ok, jnp.where(ok, t, jnp.inf),
             jnp.where(ok, best_i, -1), pos, normal,
@@ -492,36 +289,17 @@ def any_hit(dense: DenseTris, tmax, origin, d,
     """Shadow-ray query: True where any triangle is hit before tmax
     (mk_fake_bvh.any_hit, bvh.fut:41-42)."""
     phi_t = ray_features_t(origin, d)
-    if _use_pallas(dense.coeffs.shape[1]):
-        from tracer_tpu.ops.pallas import intersect_kernel as pk
-        mode = _perm_any_mode(int(dense.chunk_bounds.shape[0]))
-        if mode:
-            return _permuted_any(dense, tmax, phi_t, pk, mode=mode)
-        return pk.any_hit_pallas(dense.coeffs, phi_t,
-                                 jnp.asarray(tmax, jnp.float32),
-                                 dense.chunk_bounds)
-    t_pad = dense.coeffs.shape[1]
-    n_chunks = -(-t_pad // chunk)
     tmax = jnp.asarray(tmax, jnp.float32)
-    if n_chunks == 1:
-        valid, _ = _chunk_scores_t(phi_t, dense.coeffs, tmax, t_pad)
-        return jnp.any(valid, axis=0)
-
-    pad = n_chunks * chunk - t_pad
-    coeffs = jnp.pad(dense.coeffs, ((0, 0), (0, pad), (0, 0)))
-    coeffs = coeffs.reshape(4, n_chunks, chunk, 10).transpose(1, 0, 2, 3)
-
-    def body(hit, coeffs_chunk):
-        valid, _ = _chunk_scores_t(phi_t, coeffs_chunk, tmax, t_pad)
-        return hit | jnp.any(valid, axis=0), None
-
-    hit, _ = jax.lax.scan(body, jnp.zeros((phi_t.shape[1],), bool), coeffs)
-    return hit
+    if use_kernel(dense):
+        from tracer_tpu.ops.pallas import intersect_triton
+        return intersect_triton.any_hit(dense.coeffs, dense.chunk_bounds,
+                                        phi_t, tmax)
+    return _any_xla(dense, phi_t, tmax, chunk)
 
 
 def closest_hit_bruteforce(tris, tmax, origin, d):
-    """Pure-broadcast oracle (no matmul) used to validate the MXU path in
-    tests; O(N*T) memory, test-sized inputs only."""
+    """Pure-broadcast oracle (no matmul) used to validate the dense
+    queries in tests; O(N*T) memory, test-sized inputs only."""
     ok, t, _, _ = shapes.hit_triangle(
         tmax, origin[..., None, :], d[..., None, :], tris)
     best_i = jnp.argmin(t, axis=-1).astype(jnp.int32)

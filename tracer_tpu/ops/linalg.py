@@ -1,9 +1,9 @@
-"""Vector math on batched arrays (TPU-native replacement for linalg.fut).
+"""Vector math on batched arrays (replacement for linalg.fut).
 
 The reference uses per-value vec3 records (reference src/linalg.fut:4-8).
-On TPU the idiomatic layout is batched arrays with a trailing component
+Under XLA the idiomatic layout is batched arrays with a trailing component
 axis of size 3, so every helper here maps over arbitrary leading batch
-dimensions and lowers to plain VPU element-wise ops under XLA fusion.
+dimensions and lowers to plain element-wise ops under XLA fusion.
 """
 
 from __future__ import annotations

@@ -6,13 +6,13 @@ reflection against an opacity-lerped diffuse/transmission refraction
 (reference src/material.fut:12-18, :317-370). All evaluation happens at a
 single wavelength per path (spectral rendering with one hero wavelength).
 
-TPU re-design notes:
+Re-design notes:
   * Every function maps over (N,) lanes; directions are TRANSPOSED
     vectors (3, N) (linalg.py V3 convention) so (N,) scalars and vectors
     mix without layout changes.
   * The reference's stochastic if/else branch tree (material.fut:336-344,
     :365-370) becomes compute-all-candidates + select, which keeps the
-    VPU dense: the three candidate lobes (microfacet reflection, cosine
+    lanes convergent: the three candidate lobes (microfacet reflection, cosine
     diffuse, specular transmission) are a handful of elementwise ops each.
   * "Local space" maps the shading normal to +z via an orthonormal basis
     (material.fut:372-410); component reads are free major-axis slices.

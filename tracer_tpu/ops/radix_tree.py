@@ -5,10 +5,10 @@ and k-d Trees": given radix-sorted Morton codes, every internal node's
 child ranges are found independently with binary searches on the
 longest-common-prefix function delta.
 
-TPU re-design: the reference runs data-dependent while-loops per node
+Re-design: the reference runs data-dependent while-loops per node
 (radix_tree.fut:36-55). Here every per-node search is a fixed-trip masked
 loop over the 30 possible doublings/halvings, so the whole tree builds as
-~90 fully-vectorized VPU steps over the (n-1,) node axis with no
+~90 fully-vectorized steps over the (n-1,) node axis with no
 divergence. Duplicate keys are tie-broken by index (radix_tree.fut:26-28).
 
 Child pointer encoding (differs from the reference's sum type

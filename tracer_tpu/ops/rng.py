@@ -1,12 +1,12 @@
-"""Counter-based per-lane RNG (TPU-native replacement for rand.fut).
+"""Counter-based per-lane RNG (replacement for rand.fut).
 
 The reference threads a stateful minstd_rand LCG through every sampling
 routine and splits one stream per pixel each frame (reference
 src/rand.fut:5-8, src/integrator.fut:109).  A stateful splittable RNG is a
-poor fit for SPMD TPU code, so we use the standard GPU-path-tracer design
+poor fit for SPMD array code, so we use the standard GPU-path-tracer design
 instead: each lane (pixel/path) carries a 32-bit PCG state initialized by
 hashing (seed, frame counter, lane id).  Streams are independent across
-lanes and across frames, and advancing is ~5 integer VPU ops per draw.
+lanes and across frames, and advancing is ~5 integer ops per draw.
 
 Contract preserved from the reference: per-pixel independent streams plus
 a per-frame advance — not bitwise LCG equality (SURVEY.md section 7.1).

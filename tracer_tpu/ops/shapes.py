@@ -1,12 +1,12 @@
 """Batched ray / triangle / AABB geometry (replaces shapes.fut).
 
-Layout choices (TPU-native, not a translation):
+Layout choices (array-native, not a translation):
   rays       origins (..., 3) + dirs (..., 3), always unit dirs
   triangles  (..., 3, 3): vertices a, b, c along axis -2
   aabbs      (min_corner (..., 3), max_corner (..., 3))
 
 The reference stores AABBs as center/half_dims (shapes.fut:14); min/max
-corners make the slab test and refit pure min/max VPU ops, which is what
+corners make the slab test and refit pure min/max element-wise ops, which is what
 its own TODO at shapes.fut:10-11 suspected would be faster.
 """
 

@@ -23,9 +23,9 @@ def lookup_pairs(v, pairs):
 
     A direct vectorization of the reference's sequential knot scan
     (spectrum.fut:30-49): the 6-iteration loop unrolls to ~50 fused
-    elementwise VPU ops per lane — no gathers, no argmax, and no
-    reductions over a size-6 lane axis (which cost ~20ms per call on a
-    v5e in the naive (N, 6, 2) formulation).
+    elementwise ops per lane — no gathers, no argmax, and no reductions
+    over a size-6 minor axis (the naive (N, 6, 2) formulation; its cost
+    on the H100 is not measured).
 
     Initial bounds (-1, inf) with strict comparisons reproduce the
     sentinel semantics: knots at exactly -1 never match, ties keep the

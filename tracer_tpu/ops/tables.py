@@ -1,10 +1,11 @@
 """Row lookup from small tables without gathers.
 
-TPU gathers from tiny tables (materials, lights, triangle records) run at
-a few GB/s; a one-hot matmul runs on the MXU instead and, for the table
-sizes this framework sees (M <= a few thousand rows), is 10-100x faster.
-The product is exact in f32: each output element is value*1 + 0*rest,
-and Precision.HIGHEST keeps true f32 multiplies.
+Small tables (materials, lights, triangle records) are read by a one-hot
+product instead of a gather: the design comes from an accelerator whose
+gathers were slow, and whether it pays on the H100 against a plain
+gather is not measured (ROADMAP A5). The product is exact in f32: each
+output element is value*1 + 0*rest, and Precision.HIGHEST keeps true
+f32 multiplies.
 
 Results come back TRANSPOSED — (K, N) with the lane axis minor — so that
 downstream per-component slices are free major-axis slices and knot scans
@@ -49,7 +50,5 @@ def take_rows(table, ix):
 def take_scalar(table, ix):
     """table (M,) integer, ix (N,) int32 -> (N,) same dtype.
 
-    A 1-element-per-lane fetch: XLA's TPU dynamic-gather handles the
-    narrow case well (unlike wide rows, whose (N, K) gather result lands
-    lane-major and costs a relayout), so this is a plain gather."""
+    A 1-element-per-lane fetch: a plain gather."""
     return table[ix]

@@ -1,12 +1,12 @@
 """Multi-chip rendering: mesh + shard_map tile/sample sharding.
 
-The reference is single-device (SURVEY.md section 2.4); the TPU-native
-scaling story is the direct analogue of its embarrassingly-parallel pixel
+The reference is single-device (SURVEY.md section 2.4); the scaling
+story here is the direct analogue of its embarrassingly-parallel pixel
 loop: a 2-D device mesh with
-  "tile"    image rows sharded across chips (each chip owns a stripe;
-            zero cross-chip traffic for the framebuffer)
+  "tile"    image rows sharded across devices (each owns a stripe;
+            zero cross-device traffic for the framebuffer)
   "sample"  independent 1-spp replicas of the whole frame, averaged with
-            a single psum over ICI (spp-parallelism / data parallelism)
+            a single collective (spp-parallelism / data parallelism)
 Scene, BVH and camera are replicated; the per-frame collective is one
 (rows/tiles, w, 3) pmean on the sample axis.
 """
@@ -27,7 +27,7 @@ from tracer_tpu.engine.state import EngineState
 TILE_AXIS = "tile"
 SAMPLE_AXIS = "sample"
 
-# Env knobs the integrator/kernels read at TRACE time (see docs/PARITY.md).
+# Env knobs the integrator reads at TRACE time (see docs/PARITY.md).
 # They must be part of every cached-executable key: lru_cache would
 # otherwise freeze the first call's knob values into the executable and
 # silently ignore later changes (e.g. a pool-size sweep setting
@@ -68,7 +68,7 @@ def sharded_frame_fn(mesh: Mesh, w: int, h: int, transmitter_kind: str,
         img = integrator.render_pooled(
             seed, nonce_local, scene, cam, ambience, w, rows,
             transmitter_kind, 1, render_mode, row0=row0, full_h=h)["img"]
-        # average the independent replicas over ICI
+        # average the independent replicas
         return jax.lax.pmean(img, SAMPLE_AXIS)
 
     return shard_map(
@@ -112,8 +112,8 @@ def render_pooled_sharded(s: EngineState, mesh: Mesh, spp: int):
     (integrator.render_pooled) sharded over the mesh.
 
     The spp budget splits across the sample axis (spp must be divisible
-    by it); image rows shard over the tile axis. One pmean over ICI
-    merges the replica means. Returns the (h, w, 3) image.
+    by it); image rows shard over the tile axis. One pmean merges the
+    replica means. Returns the (h, w, 3) image.
     """
     w, h = s.sub_dims
     n_tile = mesh.shape[TILE_AXIS]
@@ -131,7 +131,7 @@ def sample_points_sharded(s: EngineState, mesh: Mesh, spp: int):
     """Multi-chip LiDAR capture: pooled wavefront with per-pixel
     closest-return merge. Rows shard over the tile axis; the spp budget
     splits over the sample axis and replicas merge with a distance
-    argmin (pmin over ICI). Returns (h, w, 4) [x, y, z, intensity]."""
+    argmin (pmin). Returns (h, w, 4) [x, y, z, intensity]."""
     w, h = s.sub_dims
     n_tile = mesh.shape[TILE_AXIS]
     n_sample = mesh.shape[SAMPLE_AXIS]

@@ -3,15 +3,15 @@
 The reference's build emits a generated C kernel library — tracer.c/.h,
 compiled once and linked by the host apps, usable without the Futhark
 compiler installed (SURVEY.md §2.2 "generated kernel library";
-demo-interactive/Makefile consumes it). The TPU-native analog: serialize
+demo-interactive/Makefile consumes it). The analog here: serialize
 the jitted engine executables as StableHLO artifacts via jax.export,
 keyed to the engine-state shapes, and reload them in a fresh process
-with NO Python retrace of the renderer. The /tmp XLA compile cache
-(docs/PARITY.md) covers the same-machine rerun case; an exported
+with NO Python retrace of the renderer. The persistent XLA compile
+cache (utils/compile_cache.py) covers the same-machine rerun case; an exported
 artifact is the shippable one.
 
 Notes:
-  * An artifact records its lowering platform (cpu / tpu); export on the
+  * An artifact records its lowering platform (cpu / cuda); export on the
     platform that will run it.
   * The callable returned by load() takes the same EngineState pytree
     the function was exported with (same shapes/dtypes AND the same

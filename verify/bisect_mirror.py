@@ -1,5 +1,5 @@
-"""Bisect harness for the mirrorbox energy discrepancy (round-3 VERDICT
-"Next #1"): tracer_tpu was +5.3% on the green channel vs the independent
+"""Bisect harness for the mirrorbox energy discrepancy: tracer_tpu
+was +5.3% on the green channel vs the independent
 numpy transliteration, with a 0.2% same-estimator control — a systematic
 divergence on metal paths (material.fut:346-355, integrator.fut:62-69)
 whose guilty side was unknown.
@@ -43,9 +43,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import _cpu_pin  # noqa: E402
-
-_cpu_pin.force_cpu(1)
+# a CPU tool: pin the platform before JAX starts
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -26,9 +26,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import _cpu_pin  # noqa: E402
-
-_cpu_pin.force_cpu(1)
+# a CPU tool: pin the platform before JAX starts
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
